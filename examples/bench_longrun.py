@@ -116,6 +116,9 @@ def run(T: int = 500, R: int = 3, rings: int = 64,
 
 
 def main() -> None:
+    from mr_slam_tpu import compile_cache
+
+    compile_cache.configure()
     T = int(os.environ.get("FRAMES", "500"))
     R = int(os.environ.get("ROBOTS", "3"))
     print(json.dumps(run(T, R)))

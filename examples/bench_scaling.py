@@ -1,11 +1,14 @@
-"""Scaling bench (run under JAX_PLATFORMS=cpu with N virtual devices):
-SPMD front-end frames/s at 1 device vs N devices over the robot mesh.
+"""Scaling bench: SPMD front-end frames/s at 1 device vs N devices over
+the robot mesh, from one process that drives every visible card.
 Prints one JSON line {fps_1, fps_n, n, efficiency}.
 
 Efficiency = throughput(N robots on N devices) /
              (N * throughput(1 robot on 1 device)) — the >=80%-at->=2-
-hosts target of BASELINE.md measured on the simulated mesh (true
-multi-process mechanics are exercised by tests/test_multihost.py)."""
+hosts target of BASELINE.md (true multi-process mechanics are
+exercised by tests/test_multihost.py and bench_multiprocess.py).
+
+Run:  python examples/bench_scaling.py
+"""
 import json
 import os
 import sys
@@ -70,6 +73,9 @@ def fps(n_robots, devices):
 
 
 def main():
+    from mr_slam_tpu import compile_cache
+
+    compile_cache.configure()
     devs = jax.devices()
     n = len(devs)
     fps_1 = fps(1, devs)
@@ -81,10 +87,7 @@ def main():
     fps_n = fps(n, devs)
     out.update(fps_n=round(fps_n, 2), n=n,
                efficiency=round(fps_n / (n * fps_1), 3),
-               # virtual CPU devices share the host's physical cores;
-               # once n exceeds this, per-device compute is core-starved
-               # and efficiency measures the host, not the sharding
-               cpu_cores=os.cpu_count())
+               platform=devs[0].platform, device_kind=devs[0].device_kind)
     print(json.dumps(out))
 
 

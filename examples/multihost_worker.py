@@ -2,7 +2,7 @@
 
 Spawned N times (see `tests/test_multihost.py`) with
 MRSLAM_COORDINATOR / MRSLAM_NUM_PROCESSES / MRSLAM_PROCESS_ID set; each
-process owns one CPU device (one robot) and feeds that robot's scans —
+process owns one device (one robot) and feeds that robot's scans —
 the role of a per-robot ROS node set in the reference. Writes process
 0's result to $MRSLAM_OUT.
 """
@@ -13,9 +13,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from mr_slam_tpu import compile_cache
 from mr_slam_tpu.parallel import multihost as mh
 
 mh.initialize()
+compile_cache.configure()
 
 import jax
 import jax.numpy as jnp
@@ -76,8 +78,8 @@ def main():
 
     if os.environ.get("MRSLAM_BENCH"):
         # frames/s of the SPMD front-end across processes (includes the
-        # cross-process dispatch/sync cost — the DCN-path number the
-        # BASELINE scaling-efficiency target asks for)
+        # cross-process dispatch/sync cost — the number the BASELINE
+        # scaling-efficiency target asks for)
         import json
         import time
 

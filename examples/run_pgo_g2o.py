@@ -2,7 +2,7 @@
 """Offline pose-graph runner: read a .g2o file, optimize, write the
 optimized graph back out.
 
-TPU-native analogue of the reference's offline driver
+The analogue of the reference's offline driver
 (`Mapping/src/global_manager/src/distributed_mapper/run_distributed_mapper.cpp`),
 which loads a directory of per-robot g2o files and runs the
 distributed-mapper scheme. Here one merged g2o file (the format the
@@ -59,8 +59,11 @@ def main() -> None:
                     help="disable the Cauchy loop-edge weighting")
     args = ap.parse_args()
 
+    from mr_slam_tpu import compile_cache
     from mr_slam_tpu.backend import chordal, factor_graph as fg, gauss_seidel
     from mr_slam_tpu.eval import g2o
+
+    compile_cache.configure()
 
     g = g2o.import_g2o(args.input)
     n = int(g.n_nodes)

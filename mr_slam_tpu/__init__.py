@@ -1,6 +1,6 @@
-"""mr_slam_tpu — a TPU-native multi-robot LiDAR SLAM engine.
+"""mr_slam_tpu — a multi-robot LiDAR SLAM engine as JAX array programs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 MaverickPeter/MR_SLAM (ROS1/C++/CUDA): scan-matching odometry, pluggable
 place recognition (ScanContext / RING / RING++ / DiSCO), VGICP loop
 verification, PCM outlier gating, distributed chordal pose-graph
@@ -11,7 +11,7 @@ instead of a ROS node graph.
 Layout (mirrors SURVEY.md §7 build plan):
   geometry/  SO(3)/SE(3) batched Lie-group math
   ops/       point-cloud substrate, voxel grids, registration, BEV,
-             Radon, FFT correlation, LOAM features (Pallas + XLA)
+             Radon, FFT correlation, LOAM features
   frontend/  scan-matching odometry + keyframe gating
   loop/      place-recognition descriptors and loop detection
   backend/   factor graph, chordal PGO, PCM, distributed optimizer
@@ -25,12 +25,11 @@ Layout (mirrors SURVEY.md §7 build plan):
 __version__ = "0.1.0"
 
 # SLAM is precision-sensitive end to end: pose chains, GN normal
-# equations and CG solves compound TPU bf16 matmul rounding (~4e-3 per
-# 3x3 entry) into metre-level trajectory error (measured: identical
-# pipeline, ATE 0.54 m under default precision vs 0.057 m under f32 on
-# a v5e chip — see precision.py). Correctness is the default;
-# throughput-critical descriptor batches opt back into bf16 explicitly
-# via `precision.fast`. An embedding application that set its own
+# equations and CG solves compound reduced-precision matmul rounding
+# (TF32 on the GPU's tensor cores) into trajectory error — see
+# precision.py. Correctness is the default; throughput-critical
+# descriptor batches opt back into the hardware default explicitly via
+# `precision.fast`. An embedding application that set its own
 # default (jax config API or the JAX_DEFAULT_MATMUL_PRECISION env var)
 # keeps it — the SLAM hot paths are protected by their own per-op
 # HIGHEST pins and the @accurate wrappers regardless.

@@ -1,4 +1,4 @@
-"""Two-stage chordal pose-graph optimization, matrix-free on TPU.
+"""Two-stage chordal pose-graph optimization, matrix-free on the device.
 
 The production optimizer of the reference is
 `evaluation_utils::centralizedGNEstimation`
@@ -9,11 +9,11 @@ The production optimizer of the reference is
             per edge: rotation chordal error + frame-local translation
             error) for a fixed 200 iterations.
 
-gtsam factors that into sparse Cholesky on CPU. The TPU-native design
+gtsam factors that into sparse Cholesky on CPU. This design
 replaces the sparse solve with matrix-free preconditioned conjugate
 gradients: every Hx product is a batched gather over edge endpoints, a
 dense per-edge (12x6x2) Jacobian contraction, and a scatter-add back to
-nodes — no factorization, no dynamic sparsity, MXU-friendly.
+nodes — no factorization, no dynamic sparsity, batched dense math.
 
 State is the product manifold SO(3)^N x R^{3N} (rotations retract by
 left exp; translations add) — the same chart gtsam's chordal stage uses.

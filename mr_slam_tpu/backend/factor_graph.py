@@ -7,7 +7,7 @@ node identity as char('a'+robot) << 56 | index
 (`global_manager.cpp:2587-2609`). Here the graph is one pytree of fixed
 capacity arrays; the key codec is kept for g2o artifact parity.
 
-Edge kinds mirror the reference's factor taxonomy:
+Edge kinds mirror the reference's factor kinds:
   ODOM       sequential BetweenFactor (`mapUpdate` :1805-1819)
   INTRA_LOOP same-robot loop (`detectLoopClosure` odometry-space path)
   INTER_LOOP cross-robot loop (`performLoopClosure`, `/loop_info`)

@@ -16,7 +16,7 @@ the separator (inter-robot loop) edges —
     `postUpdate` (Jacobi, apply after the full sweep), with
     over-relaxation gamma (`distributed_mapper.h:110-123`).
 
-TPU formulation: robot subproblems are masked solves over the SAME
+Array formulation: robot subproblems are masked solves over the SAME
 fixed-capacity arrays — the block solve for robot r runs matrix-free CG
 where only rows with `node_robot == r` are free and every other node's
 contribution is folded into the right-hand side. Sweeps are unrolled

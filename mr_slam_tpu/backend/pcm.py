@@ -12,7 +12,7 @@ mutually-consistent subset is the maximum clique of the consistency
 graph (`fast_max-clique_finder`, heuristic mode in production —
 `global_manager.cpp:1305`).
 
-TPU split: the O(L^2) consistency matrix is one batched pose-algebra op;
+Device/host split: the O(L^2) consistency matrix is one batched pose-algebra op;
 the max clique is inherently combinatorial and runs on host over the
 tiny boolean matrix (L = active loop count, tens), exactly where the
 reference runs it. A greedy+local-search heuristic matches

@@ -1,7 +1,7 @@
 """Offline visualization — the `Visualization/vis.rviz` analogue.
 
 The reference renders the merged cloud, per-robot trajectories, loop
-edges and the costmap live in rviz. Headless TPU pods get the same
+edges and the costmap live in rviz. Headless accelerator hosts get the same
 views as matplotlib renders written to PNG: `plot_map` (top-down merged
 cloud + trajectories + loop edges), `plot_elevation` (2.5D layers), and
 `plot_costmap`.

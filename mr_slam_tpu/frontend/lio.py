@@ -1,4 +1,4 @@
-"""FAST-LIO2-style lidar-inertial odometry, TPU-native.
+"""FAST-LIO2-style lidar-inertial odometry as one jitted filter step.
 
 Re-design of `Localization/src/FAST_LIO` (SURVEY.md §2.5): the reference
 runs a 23-state manifold iterated error-state EKF (IKFoM) whose
@@ -6,7 +6,7 @@ measurement model is an OpenMP loop of per-point ikd-tree 5-NN plane
 residuals (`laserMapping.cpp:634-766`), IMU forward-propagation +
 backward undistortion (`IMU_Processing.hpp:65`), and ikd-tree insertion.
 
-The TPU formulation is a 24-dof error-state filter
+The formulation here is a 24-dof error-state filter
 dx = [dphi, dp, dv, dbg, dba, dphi_e, dp_e, dgrav] (left/world-frame
 rotation perturbation R_true = exp(dphi) R_hat; (dphi_e, dp_e) perturb
 the lidar-IMU extrinsic R_li <- exp(dphi_e) R_li, t_li <- t_li + dp_e;

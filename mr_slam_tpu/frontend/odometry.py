@@ -1,8 +1,8 @@
 """Scan-to-map lidar odometry — one jitted step, `lax.scan` over frames.
 
 The reference runs two pluggable front-ends (A-LOAM: feature odometry +
-cube-grid map refinement; FAST-LIO2: IEKF against an ikd-tree map). The
-TPU-native design collapses both into a single functional pipeline:
+cube-grid map refinement; FAST-LIO2: IEKF against an ikd-tree map). This
+design collapses both into a single functional pipeline:
 
     downsample -> predict (constant velocity) -> point-to-plane GN
     against a persistent voxel-hash Gaussian map -> insert -> decay
@@ -41,19 +41,17 @@ class OdometryConfig(NamedTuple):
     map_radius: float = 120.0       # moving-FOV trim radius
     iters: int = 8                  # GN iterations per frame
     max_corr_dist: float = 1.0
-    # Map-maintenance cadences. The insert/decay table passes are the
-    # measured bulk of the per-frame cost (v5e: ~37 ms/step total, the
-    # registration itself <1 ms with the table VMEM-resident); trimming
-    # the moving-FOV map every frame is pointless when the robot moves
-    # ~1 m/frame against a 120 m radius, and the coarse rescue grid
-    # (4x leaf) saturates its cells from every 4th scan.
+    # Map-maintenance cadences: trimming the moving-FOV map every frame
+    # is pointless when the robot moves ~1 m/frame against a 120 m
+    # radius, and the coarse rescue grid (4x leaf) saturates its cells
+    # from every 4th scan.
     decay_every: int = 8            # FOV trim every N frames
     coarse_every: int = 4           # coarse-grid insert every N frames
     # annealed association for the fine register (see
     # registration.point_to_plane_icp `schedule`): early rounds
-    # associate a strided subset — the direct7 gather + plane fits are
-    # the measured bulk of the frame. Measured (v5e, 32x1024): 67 vs
-    # 52 fps, bench-circle ATE 0.073 vs 0.063 m.
+    # associate a strided subset of points, trading a little accuracy
+    # for fewer direct7 gathers and plane fits. Its cost and gain on the
+    # GPU are not measured yet.
     anneal: bool = True
 
 

@@ -16,8 +16,8 @@ import jax.numpy as jnp
 from . import so3
 
 # Pose math runs at explicit f32 matmul precision ALWAYS: 3x3 chains
-# are MXU-irrelevant but bf16 rounding (~4e-3/entry) compounds into
-# metre-level error over long compositions (see precision.py).
+# gain no speed from reduced precision, but its rounding compounds over
+# long compositions (see precision.py).
 _P = jax.lax.Precision.HIGHEST
 
 

@@ -3,7 +3,7 @@
 Replaces the scattered Eigen/tf conversions of the reference
 (`Mapping/src/global_manager/src/global_manager.cpp:2465-2815`) with one
 batched, jit-friendly Lie-group module. All functions broadcast over
-leading batch dimensions and are float32 (TPU native).
+leading batch dimensions and are float32.
 """
 from __future__ import annotations
 
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# Rotation math at explicit f32 matmul precision always — bf16 MXU
-# rounding compounds over composition chains (see precision.py).
+# Rotation math at explicit f32 matmul precision always — reduced-
+# precision rounding compounds over composition chains (see precision.py).
 _P = jax.lax.Precision.HIGHEST
 
 

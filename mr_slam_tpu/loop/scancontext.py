@@ -5,7 +5,7 @@ Re-design of `LoopDetection/src/RING_ros/pr_methods/ScanContext.py` and
 retrieval key = per-ring mean (ring key); matching = cosine distance
 minimized over all circular column shifts. The reference loops Python
 over candidates and shifts; here the whole (Q x D x S) shift-distance
-tensor is one einsum on the MXU.
+tensor is one einsum.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ the persistent device-global ring-buffer grid + per-cell Kalman fusion
   * `shift` — pure roll-and-clear replacing the wrap-around ring-buffer
     indexing (`gpu_process.cu:192-194`), keeping everything
     vectorizable;
-  * `features` — 5x5 neighbourhood plane fit via depthwise convolutions
+  * `features` — 5x5 neighbourhood plane fit, one window per cell
     -> slope / roughness / traversability layers.
 
 A leading robot axis vmaps the whole module; grid blocks shard over the
@@ -21,6 +21,7 @@ mesh for the merged global map.
 """
 from __future__ import annotations
 
+import functools
 from functools import partial
 from typing import NamedTuple
 
@@ -303,6 +304,7 @@ class TerrainFeatures(NamedTuple):
     roughness: jax.Array      # m (plane-fit residual std)
     step: jax.Array           # m (max height jump in window)
     traversability: jax.Array  # [0, 1], 1 = flat and smooth
+    support: jax.Array        # valid cells in the window (fit needs >= 3)
 
 
 def _window_sums(x: jax.Array, k: int) -> jax.Array:
@@ -315,6 +317,7 @@ def _window_sums(x: jax.Array, k: int) -> jax.Array:
     return x2
 
 
+@partial(jax.jit, static_argnames=("window",))
 def features(
     m: ElevationMap,
     window: int = 5,
@@ -322,76 +325,75 @@ def features(
     rough_crit: float = 0.15,
     step_crit: float = 0.3,
 ) -> TerrainFeatures:
-    """Terrain features — PRODUCTION dispatcher. On TPU with the
-    standard 5x5 window this takes the fused Pallas stencil
-    (`features_fused`, measured 1.1-2.6x faster than the XLA lowering
-    on chip — bench.py `pallas_stencil`); elsewhere (CPU tests, odd
-    windows) the XLA path (`features_xla`). Both compute
-    `G_Mapfeature`'s plane-fit slope/roughness/step/traversability."""
-    if window == 5 and jax.default_backend() == "tpu":
-        return features_fused(
-            m, slope_crit=slope_crit, rough_crit=rough_crit,
-            step_crit=step_crit,
-        )
-    return features_xla(
-        m, window, slope_crit=slope_crit, rough_crit=rough_crit,
-        step_crit=step_crit,
-    )
-
-
-@partial(jax.jit, static_argnames=("window",))
-def features_xla(
-    m: ElevationMap,
-    window: int = 5,
-    slope_crit: float = 0.6,
-    rough_crit: float = 0.15,
-    step_crit: float = 0.3,
-) -> TerrainFeatures:
     """`G_Mapfeature` (`gpu_process.cu:547-665`): per cell fit a plane
-    z = ax + by + c over the k x k neighbourhood (least squares via box
-    sums), derive slope / roughness / step and blend into a [0,1]
-    traversability score (weights as the reference: slope, roughness and
-    step each normalized by a critical value)."""
+    z = ax + by + c to the valid cells of its k x k neighbourhood by
+    least squares, derive slope / roughness (residual std) / step
+    (height range) and blend them into a [0,1] traversability score
+    (weights as the reference: slope, roughness and step each
+    normalized by a critical value).
+
+    As in the reference's one thread per cell, every cell reads its own
+    window: the sums run over the k*k taps as shifted views of the
+    padded grid, which XLA fuses into elementwise passes. Coordinates
+    are taken relative to the window centre and heights relative to the
+    window mean, so float32 moments stay free of cancellation at any map
+    extent; roughness sums the squared residuals directly. Cells outside
+    the map count as invalid. A window whose valid cells are collinear
+    has no unique plane and gets slope 0. `step` takes the window's
+    maximum over heights with invalid cells read as 0 and its minimum
+    over valid cells only."""
     H, W = m.shape
+    r = window // 2
     res = m.resolution
-    v = m.valid.astype(jnp.float32)
+    offs = [(di, dj) for di in range(-r, r + 1) for dj in range(-r, r + 1)]
     z = jnp.where(m.valid, m.height, 0.0)
-    ii = jnp.arange(H, dtype=jnp.float32)[:, None] * res
-    jj = jnp.arange(W, dtype=jnp.float32)[None, :] * res
-    x = jnp.broadcast_to(ii, (H, W))
-    y = jnp.broadcast_to(jj, (H, W))
-    S1 = _window_sums(v, window)
-    Sx = _window_sums(v * x, window)
-    Sy = _window_sums(v * y, window)
-    Sz = _window_sums(v * z, window)
-    Sxx = _window_sums(v * x * x, window)
-    Syy = _window_sums(v * y * y, window)
-    Sxy = _window_sums(v * x * y, window)
-    Sxz = _window_sums(v * x * z, window)
-    Syz = _window_sums(v * y * z, window)
-    Szz = _window_sums(v * z * z, window)
+    v_p = jnp.pad(m.valid.astype(jnp.float32), r)
+    z_p = jnp.pad(z, r)
+
+    def tap(a, di, dj):
+        return jax.lax.slice(a, (r + di, r + dj), (r + di + H, r + dj + W))
+
+    # pass 1: support and window means (dx, dy are exact grid offsets)
+    S1 = sum(tap(v_p, di, dj) for di, dj in offs)
     n = jnp.maximum(S1, 1.0)
-    # centered moments
-    mx, my, mz = Sx / n, Sy / n, Sz / n
-    cxx = Sxx / n - mx * mx
-    cyy = Syy / n - my * my
-    cxy = Sxy / n - mx * my
-    cxz = Sxz / n - mx * mz
-    cyz = Syz / n - my * mz
-    czz = Szz / n - mz * mz
+    mx = sum(tap(v_p, di, dj) * (di * res) for di, dj in offs) / n
+    my = sum(tap(v_p, di, dj) * (dj * res) for di, dj in offs) / n
+    mz = sum(tap(v_p, di, dj) * tap(z_p, di, dj) for di, dj in offs) / n
+
+    # pass 2: centred second moments
+    def centred(di, dj):
+        return (tap(v_p, di, dj), di * res - mx, dj * res - my,
+                tap(z_p, di, dj) - mz)
+
+    cxx = cyy = cxy = cxz = cyz = 0.0
+    for di, dj in offs:
+        w, ex, ey, ez = centred(di, dj)
+        cxx = cxx + w * ex * ex
+        cyy = cyy + w * ey * ey
+        cxy = cxy + w * ex * ey
+        cxz = cxz + w * ex * ez
+        cyz = cyz + w * ey * ez
+    cxx, cyy, cxy, cxz, cyz = (c / n for c in (cxx, cyy, cxy, cxz, cyz))
     det = cxx * cyy - cxy * cxy
-    det_safe = jnp.where(jnp.abs(det) < 1e-9, 1e-9, det)
-    a = (cyy * cxz - cxy * cyz) / det_safe
-    b = (cxx * cyz - cxy * cxz) / det_safe
+    plane = jnp.abs(det) >= 1e-9
+    det_safe = jnp.where(plane, det, 1.0)
+    a = jnp.where(plane, (cyy * cxz - cxy * cyz) / det_safe, 0.0)
+    b = jnp.where(plane, (cxx * cyz - cxy * cxz) / det_safe, 0.0)
     slope = jnp.arctan(jnp.sqrt(a * a + b * b))
-    resid = jnp.maximum(czz - (a * cxz + b * cyz), 0.0)
-    roughness = jnp.sqrt(resid)
-    # step: max-min in window (dilate/erode via repeated 3x3 max)
-    zmax = z
-    zmin = jnp.where(m.valid, m.height, jnp.inf)
-    for _ in range(window // 2):
-        zmax = _dilate3(zmax)
-        zmin = -_dilate3(-zmin)
+
+    # pass 3: residual of the fitted plane
+    resid = 0.0
+    for di, dj in offs:
+        w, ex, ey, ez = centred(di, dj)
+        e = ez - a * ex - b * ey
+        resid = resid + w * e * e
+    roughness = jnp.sqrt(resid / n)
+
+    zmax_p = jnp.pad(z, r, constant_values=-jnp.inf)
+    zmin_p = jnp.pad(jnp.where(m.valid, m.height, jnp.inf), r,
+                     constant_values=jnp.inf)
+    zmax = functools.reduce(jnp.maximum, (tap(zmax_p, *o) for o in offs))
+    zmin = functools.reduce(jnp.minimum, (tap(zmin_p, *o) for o in offs))
     step = jnp.where(jnp.isfinite(zmin), zmax - zmin, 0.0)
     enough = S1 >= 3.0
     trav = 1.0 - jnp.maximum(
@@ -404,27 +406,7 @@ def features_xla(
         roughness=jnp.where(enough, roughness, 0.0),
         step=step,
         traversability=trav,
-    )
-
-
-def features_fused(
-    m: ElevationMap,
-    slope_crit: float = 0.6,
-    rough_crit: float = 0.15,
-    step_crit: float = 0.3,
-) -> TerrainFeatures:
-    """`features` computed by the fused Pallas stencil kernel
-    (`ops/pallas_stencil.py`) — one HBM pass instead of ~30; measured
-    1.1-2.6x faster on TPU (bench.py), larger maps win more. Numerics
-    match `features` (the kernel is the more accurate of the two)."""
-    from ..ops import pallas_stencil
-
-    slope, rough, step, trav = pallas_stencil.terrain_features(
-        m.height, m.valid, m.resolution,
-        slope_crit=slope_crit, rough_crit=rough_crit, step_crit=step_crit,
-    )
-    return TerrainFeatures(
-        slope=slope, roughness=rough, step=step, traversability=trav
+        support=S1,
     )
 
 

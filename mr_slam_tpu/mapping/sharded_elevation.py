@@ -1,12 +1,13 @@
 """Elevation grid sharded over the device mesh with halo exchange.
 
 SURVEY §5.7: the reference's third scaling axis is MAP EXTENT — GEM's
-ring-buffer grid is bounded by one GPU. The TPU-native answer shards the
-global 2.5D grid by row blocks across the mesh and runs the 5x5
-terrain-feature stencil (`G_Mapfeature`) locally after exchanging
-2-row halos with mesh neighbours (`jax.lax.ppermute` over ICI) — the
-same pattern as sharded convolutions. The result is bit-identical to
-running `elevation.features` on the unsharded grid.
+ring-buffer grid is bounded by one GPU. Here the global 2.5D grid is
+sharded by row blocks across the mesh and the 5x5 terrain-feature
+stencil (`G_Mapfeature`) runs locally after exchanging 2-row halos with
+mesh neighbours (`jax.lax.ppermute`) — the same pattern as sharded
+convolutions. The result matches `elevation.features` on the unsharded
+grid (window-relative coordinates make each cell's fit independent of
+where its block starts).
 """
 from __future__ import annotations
 
@@ -47,9 +48,7 @@ def _exchange_and_compute(height, valid, res, *, axis, n_shards,
         m, slope_crit=slope_crit, rough_crit=rough_crit, step_crit=step_crit
     )
     crop = lambda a: a[HALO:-HALO]
-    return (
-        crop(f.slope), crop(f.roughness), crop(f.step), crop(f.traversability)
-    )
+    return tuple(crop(a) for a in f)
 
 
 @partial(
@@ -80,12 +79,9 @@ def features_sharded(
         body,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P()),
-        out_specs=(P(axis), P(axis), P(axis), P(axis)),
+        out_specs=(P(axis),) * len(elevation.TerrainFeatures._fields),
         check_vma=False,
     )
-    slope, rough, step, trav = fn(
-        m.height, m.valid, m.resolution.astype(jnp.float32)
-    )
     return elevation.TerrainFeatures(
-        slope=slope, roughness=rough, step=step, traversability=trav
+        *fn(m.height, m.valid, m.resolution.astype(jnp.float32))
     )

@@ -1,8 +1,8 @@
 """ctypes bindings for the native runtime components.
 
 The reference ships its combinatorial and I/O layers as C++ (the
-fast_max-clique_finder used by PCM, rosbag/driver deserialization); the
-TPU build keeps those host-side pieces native too. The shared library
+fast_max-clique_finder used by PCM, rosbag/driver deserialization); this
+package keeps those host-side pieces native too. The shared library
 is built on demand with `make` (g++ only, no external deps); every
 binding has a pure-Python fallback so the package works unbuilt.
 """

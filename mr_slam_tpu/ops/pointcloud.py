@@ -146,7 +146,7 @@ def voxel_downsample(
 def knn(query: jax.Array, pc: PointCloud, k: int):
     """Brute-force k-NN of query (M, 3) against a masked cloud (N, 3).
 
-    Distance matrix rides the MXU: |q - p|^2 = |q|^2 + |p|^2 - 2 q.p.
+    Distance matrix as one matmul: |q - p|^2 = |q|^2 + |p|^2 - 2 q.p.
     Replaces kd-tree searches for moderate N (the loop-verification
     clouds); odometry-scale search uses the voxel-grid path instead
     (`ops/voxel_grid.py`).

@@ -1,6 +1,6 @@
 """Batched point-cloud registration: point-to-plane ICP and VGICP.
 
-TPU-native replacement for the reference's registration zoo
+Array-program replacement for the reference's registration zoo
 (`global_manager.cpp:2416-2462` selects PCL_ICP / PCL_GICP / FAST_GICP /
 FAST_VGICP_CUDA; the RING node refines loops with pygicp FastGICP,
 `main_RING.py:81-104`). Instead of per-point kd-tree queries +
@@ -39,8 +39,8 @@ class RegistrationResult(NamedTuple):
 
 def _select_best(best: jax.Array, K: int, *arrays):
     """Select arrays[n, best[n], ...] via a one-hot contraction — avoids
-    take_along_axis row gathers (slow on TPU for tiny trailing dims;
-    for small K the one-hot multiply-add is pure VPU work)."""
+    take_along_axis row gathers over tiny trailing dims; for small K
+    the one-hot multiply-add is plain element-wise work."""
     sel = jax.nn.one_hot(best, K, dtype=jnp.float32)  # (N, K)
     out = []
     for a in arrays:
@@ -58,7 +58,7 @@ def _gn_update(H: jax.Array, b: jax.Array, damping: float) -> jax.Array:
 
 
 # (row, col) order of the 21 upper-triangle entries emitted by
-# `_gn_terms_direct1` — shared with the Pallas kernel's layout.
+# `_gn_terms_direct1`.
 _TRI = [
     (0, 0), (0, 1), (0, 2), (0, 3), (0, 4), (0, 5),
     (1, 1), (1, 2), (1, 3), (1, 4), (1, 5),
@@ -81,7 +81,7 @@ def _gn_terms_direct1(
     Associates (voxel row gather) and accumulates in one pass. Formulas
     mirror fast_gicp's per-point update: W = (Cv + eps I)^-1 via the
     adjugate, J = [-I | hat(tp)], H += J^T W J, b += -J^T W r. The
-    component form avoids (N,3,3)/(N,3,6)/(N,6,6) HBM intermediates —
+    component form avoids (N,3,3)/(N,3,6)/(N,6,6) memory intermediates —
     all per-point work is flat (N,) arithmetic XLA fuses into a couple
     of kernels.
 
@@ -112,12 +112,10 @@ def _gn_terms_from_rows(
 ):
     """GN accumulation against CACHED correspondences (no gather).
 
-    The per-iteration voxel-row gather is the measured bottleneck of the
-    registration loop on TPU (random HBM access, ~2.7 ms per iteration
-    on the 32x4096 loop-verification batch vs <0.2 ms for the whole
-    fused GN math). Caching rows across inner iterations is the classic
-    ICP split: associate in the outer loop, optimize the fixed-
-    correspondence quadratic in the inner loop.
+    The per-iteration voxel-row gather (random device-memory access)
+    costs far more than the fused GN math. Caching rows across inner
+    iterations is the classic ICP split: associate in the outer loop,
+    optimize the fixed-correspondence quadratic in the inner loop.
 
     `center`: optional linearization center c. The rotational update is
     parameterized about c (J = [-I | hat(tp - c)]), which keeps the
@@ -316,7 +314,7 @@ def _vgicp_direct1(
     """Fused direct1 VGICP with correspondence caching.
 
     `iters` total GN steps run as ceil(iters/inner) outer re-association
-    rounds (voxel row gather — the expensive random-HBM op) x `inner`
+    rounds (voxel row gather — the expensive random-access op) x `inner`
     gather-free GN steps on the cached rows (the classic ICP associate/
     optimize split; fast_gicp re-associates every step, but with a
     quadratic fixed-correspondence cost the extra associations change
@@ -327,25 +325,15 @@ def _vgicp_direct1(
     the ANNEALED association schedule. Early rounds only need a coarse
     pose correction, so they associate (and optimize) a strided subset
     of the source; the final round(s) run the full cloud. Overrides
-    `iters`/`inner` when given. Measured on the loop-verification
-    workload (v5e, B=128 x 4096 pts, seed-realistic initials):
-    ((5, 4), (8, 2), (17, 1)) reaches the SAME converged accuracy as
-    the uniform 5 x inner=10 rounds (median 2 mm, p90 6 mm, identical
-    fraction converged) at 2.4x the throughput — gather volume drops
-    from 5N to 1.75N rows and total GN steps 50 -> 30.
+    `iters`/`inner` when given. ((5, 4), (8, 2), (17, 1)) cuts the
+    gather volume from 5N to 1.75N rows and the GN steps from 50 to 30;
+    bench.py reports its converged accuracy (`extra.convergence`).
 
-    Measured binding resource (v5e, B=128 x 4096 pts): the per-round
-    row gather runs at ~20 ns/row (~3 GB/s effective random-row HBM
-    bandwidth) and dominates; the 10 fused GN steps between gathers
-    cost ~0.8 ms total. inner=10 (5 re-associations for iters=50)
-    matches inner=5 accuracy on seed-realistic initials (<= 0.3 m /
-    3 deg — what RING/SC seeding delivers) and doubles throughput;
-    alternatives measured worse: one-hot MXU contraction 2.1x slower,
-    Pallas table-resident kernel 50x slower, and COHERENT (slot-sorted)
-    gathers lose outright — per-round argsort+permute 2.6x slower,
-    one-time pre-sort still 1.18x slower — the gather is address-issue
-    bound, not access-order bound, so sorting buys nothing (VERDICT-r4
-    item 2's experiment, measured 2026-08)."""
+    The per-round row gather dominates; the fused GN steps between
+    gathers are cheap, so inner=10 (5 re-associations for iters=50)
+    halves the gathers of inner=5 on seed-realistic initials
+    (<= 0.3 m / 3 deg — what RING/SC seeding delivers). Its time on the
+    GPU is not measured yet."""
     max_corr2 = jnp.float32(max_corr_dist) ** 2
     if schedule is None:
         schedule = tuple(
@@ -622,8 +610,8 @@ def point_to_point_icp(
 ) -> RegistrationResult:
     """Classic point-to-point ICP — the reference's PCL_ICP option in
     `select_registration_method` (`global_manager.cpp:2416-2462`).
-    Correspondences are brute-force nearest neighbours on the MXU
-    (|q-p|^2 distance matrix), residual = matched offset, closed GN on
+    Correspondences are brute-force nearest neighbours from one
+    |q-p|^2 distance matmul, residual = matched offset, closed GN on
     se(3). Intended for the loop-verification cloud sizes (<= ~8k)."""
     from . import pointcloud as _pcl
 

@@ -1,9 +1,9 @@
-"""Voxel-hash Gaussian grid — the TPU-native correspondence structure.
+"""Voxel-hash Gaussian grid — the array-native correspondence structure.
 
 The reference's hot registration paths search kd-trees per point
 (ikd-Tree in FAST-LIO `laserMapping.cpp:666`, KdTreeFLANN in A-LOAM,
-fast_gicp's GaussianVoxelMap for VGICP). Pointer trees don't map to TPU;
-this module replaces them with an open-addressed voxel hash table built
+fast_gicp's GaussianVoxelMap for VGICP). Pointer trees don't map to
+fixed-shape array programs; this module replaces them with an open-addressed voxel hash table built
 entirely from scatters and gathers:
 
   * build: every point hashes its voxel coord into a slot; the lowest
@@ -17,9 +17,9 @@ entirely from scatters and gathers:
 
 Memory layout is performance-critical: the whole cell is PACKED into one
 (H, 16) float32 row [coords(3) count mean(3) cov_sym(6) valid pad(2)] so
-a lookup is a single contiguous row gather. Gathering the same data from
-separate (H,), (H,3), (H,3,3) arrays measures ~10x slower on TPU (small
-strided gathers); see bench notes in the round-1 log. Voxel coords are
+a lookup is a single contiguous 64-byte row gather instead of several
+small strided gathers from separate (H,), (H,3), (H,3,3) arrays. Voxel
+coords are
 exact in float32 for any |coord| < 2^24 (bounds crops guarantee this);
 the UNCLAIMED sentinel 2^30 is also exact.
 
@@ -188,9 +188,8 @@ def build(
         clamped = jnp.maximum(evals / scale, 1e-3) * scale
         # component-form reconstruction C = V diag(clamped) V^T: the
         # einsum "hik,hk,hjk->hij" dot_general materializes (H, 3, 3)
-        # temporaries whose TPU tiling pads 3 -> 128 (measured 57x
-        # memory expansion — OOM at 256-way vmapped builds); elementwise
-        # sums over the 3 eigenvectors fuse with no (H, 3, 3) tensors
+        # temporaries with padded minor dims; elementwise sums over the
+        # 3 eigenvectors fuse with no (H, 3, 3) tensors
         cov_comp = []
         for i, j in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)):
             cov_comp.append(sum(

@@ -1,8 +1,8 @@
 """Device-mesh construction and sharding helpers.
 
 The reference distributes work as one OS process per robot plus a hub
-node, all glued by TCPROS (SURVEY.md §2.10). The TPU-native equivalent
-is a `jax.sharding.Mesh` with two axes:
+node, all glued by TCPROS (SURVEY.md §2.10). The equivalent here is a
+`jax.sharding.Mesh` with two axes:
 
   robot — data parallelism over robots (per-robot odometry, descriptor
           databases, keyframe stores shard here);

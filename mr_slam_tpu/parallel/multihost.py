@@ -8,7 +8,9 @@ multi-controller design:
 
   * every process calls `initialize()` (`jax.distributed.initialize`)
     and sees the GLOBAL device set; a 1-D `Mesh` over axis "robot" spans
-    all hosts (ICI within a host/slice, DCN across hosts);
+    all hosts and follows the robot axis only (the cards of one host
+    reach each other all to all over NVLink, so no device order is
+    preferred);
   * each host FEEDS the robots whose mesh devices are local
     (`feed_global`: per-process shards assembled into one global array —
     the host-feeder replacing rosbag playback into per-robot topics);

@@ -198,7 +198,7 @@ def cross_robot_distances(
     if axis_name is not None:
         db = jax.lax.all_gather(db, axis_name, axis=0, tiled=True)
         valid = jax.lax.all_gather(valid, axis_name, axis=0, tiled=True)
-    # |q - d|^2 = |q|^2 + |d|^2 - 2 q.d ; contraction on the MXU
+    # |q - d|^2 = |q|^2 + |d|^2 - 2 q.d ; one batched contraction
     q2 = jnp.sum(queries * queries, axis=-1)[..., None, None]
     d2 = jnp.sum(db * db, axis=-1)[None, None]
     qd = jnp.einsum("rqd,skd->rqsk", queries, db)

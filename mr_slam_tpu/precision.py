@@ -1,18 +1,21 @@
 """Matmul precision policy for accuracy-critical paths.
 
-On TPU, float32 matmuls/einsums default to bf16 MXU passes. The
+On an NVIDIA GPU, float32 matmuls, einsums and convolutions under
+JAX's "default" precision may run on the tensor cores in TF32, which
+keeps a 10-bit mantissa (relative rounding ~5e-4 per product). The
 geometry stack (GN normal-equation accumulations, pose-composition
-chains, CG iterations) compounds that rounding into metre-level error:
-the 30-frame benchmark circle measures ATE 0.716 m under default
-precision vs 0.055 m under float32 precision (identical code, CPU
-reference 0.062 m). The descriptor/BEV side (Radon splats, all-pairs
-correlation einsums, DiSCO convs) is retrieval-ranking only — bf16 is
-harmless there and 2-3x faster on the MXU.
+chains, CG iterations) compounds that rounding over hundreds of frames
+into trajectory error. The descriptor/BEV side (Radon, all-pairs
+correlation einsums, DiSCO convs) only ranks candidates: TF32 leaves its
+top-1 answers unchanged (`chip_smoke.py` phase 3 checks this on the
+card), so it may take the faster mode.
 
-Policy: wrap accuracy-critical ENTRY POINTS with `accurate`, which
-traces them under `jax.default_matmul_precision("float32")` (the
-context applies at trace time, so cached executions pay nothing).
-Descriptor paths stay on the fast default.
+Policy: the package makes full float32 the global default at import
+(`mr_slam_tpu/__init__.py`); accuracy-critical ENTRY POINTS are also
+wrapped with `accurate`, which traces them under
+`jax.default_matmul_precision("float32")` (the context applies at trace
+time, so cached executions pay nothing). Descriptor paths opt into
+`fast`.
 """
 from __future__ import annotations
 
@@ -22,9 +25,8 @@ import jax
 
 # Explicit per-op precision for pose/geometry math that must be exact
 # regardless of the ambient context: 3x3 rotation chains gain nothing
-# from bf16 MXU passes, but compound its ~4e-3 rounding into metre-level
-# trajectory error when composed over hundreds of frames (measured:
-# identical pipeline, ATE 0.54 m default vs 0.057 m f32 on TPU).
+# from TF32, but compound its rounding into trajectory error when
+# composed over hundreds of frames.
 HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -47,10 +49,10 @@ def accurate(fn):
 
 
 def fast(fn):
-    """Trace `fn` under the hardware-default (TPU: bf16 MXU) matmul
-    precision — the explicit opt-in for throughput-critical descriptor
-    batches where ranking, not geometry, is the output (retrieval
-    einsums, Radon splats, DiSCO convs). Place ABOVE `jax.jit`."""
+    """Trace `fn` under the hardware-default matmul precision (TF32 on
+    the GPU's tensor cores) — the explicit opt-in for throughput-critical
+    descriptor batches where ranking, not geometry, is the output
+    (retrieval einsums, Radon, DiSCO convs). Place ABOVE `jax.jit`."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):

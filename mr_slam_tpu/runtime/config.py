@@ -35,9 +35,8 @@ class OdometryCfg:
                                        # reference's 23-state IKFoM path)
     decay_every: int = 8    # map FOV-trim cadence (frames)
     coarse_every: int = 4   # coarse rescue-grid refresh cadence (frames)
-    anneal: bool = True     # annealed fine-register association (67 vs
-                            # 52 fps at 32x1024; ATE 0.073 vs 0.063 on
-                            # the bench circle — see
+    anneal: bool = True     # annealed fine-register association: fewer
+                            # gathers for slightly higher ATE (see
                             # registration.point_to_plane_icp)
 
 

@@ -3,7 +3,7 @@
 The reference scatters `TicToc` stopwatches and ROS_DEBUG prints across
 stages (SURVEY.md §5.1: `tic_toc.h`, per-stage chrono spans, FAST-LIO's
 matlab log dumps) with no registry. Here one `Tracer` keeps the
-reference's stage taxonomy (prepare / associate / solve / update /
+reference's stage names (prepare / associate / solve / update /
 compose) as named spans with wall-clock stats, and a `Metrics` registry
 holds counters/gauges the pipeline publishes (loops found, PCM
 rejections, optimizer cost, fitness values) — queryable and dumpable as

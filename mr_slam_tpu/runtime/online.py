@@ -3,7 +3,7 @@
 The reference's GlobalManager is callback-driven: six threads racing
 over mutex-guarded state (discovery, loop closing @0.1 Hz, geometry
 check busy-loop, composing @3 Hz, TF @10 Hz — `global_manager_node.cpp:
-45-50`). The TPU runtime replaces that with ONE deterministic scheduler:
+45-50`). This runtime replaces that with ONE deterministic scheduler:
 `add_frame` ticks odometry (jitted, fixed shapes) and gates keyframes;
 every `loop_every` new keyframes the session runs the loop stage
 (batched retrieval -> batched verification -> PCM -> incremental PGO).

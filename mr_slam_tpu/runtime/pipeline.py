@@ -289,8 +289,8 @@ def describe_one(cloud: pcl.PointCloud, cfg: SlamConfig) -> dict:
 def compute_descriptors(store: kf.KeyframeStore, cfg: SlamConfig):
     """Batch-describe every keyframe. Returns a dict of stacked arrays
     (contents depend on cfg.loops.method). Descriptor batches trace
-    under hardware-default (bf16 MXU) precision — retrieval ranking
-    tolerates it and it is 2-3x faster (`precision.fast`)."""
+    under hardware-default precision (TF32 on the GPU) — retrieval
+    ranking tolerates it (`precision.fast`)."""
     clouds = pcl.PointCloud(store.xyz, store.mask)  # (K, P, ...)
     return jax.vmap(lambda c: describe_one(c, cfg))(clouds)
 

@@ -48,39 +48,34 @@ class TestSE2Hypotheses:
         assert abs(dyaw) < 0.1, f"yaw {float(yaws[k])} vs {phi}"
         assert terr < 3.0, f"t {np.asarray(xys[k])} vs {t}"
 
-    def test_radon_mxu_recovers_se2(self):
-        """The gather-free MXU radon is a drop-in for `radon`: same
-        correlation + SE(2) recovery behaviour."""
-        rng = np.random.default_rng(0)
-        pts = rng.uniform(-45, 45, (4000, 2))
-        blobs = rng.uniform(-40, 40, (30, 2))
-        d = np.linalg.norm(pts[:, None] - blobs[None], axis=-1).min(1)
-        pts = pts[d < 6.0]
-        z = rng.uniform(0.5, 4.0, (pts.shape[0], 1))
-        pa = np.concatenate([pts, z], 1)
-        phi, t = -1.2, np.array([2.0, 9.0])
-        R2 = np.array([[np.cos(phi), -np.sin(phi)],
-                       [np.sin(phi), np.cos(phi)]])
-        pb = pa.copy()
-        pb[:, :2] = pa[:, :2] @ R2.T + t
-
-        def describe_mxu(p):
-            pc = pcl.PointCloud(jnp.asarray(p, jnp.float32),
-                                jnp.ones(p.shape[0], bool))
-            occ = bev.cartesian_occupancy(bev.normalize_cloud(pc))[0]
-            s = ring.radon_mxu(occ)
-            s = s / jnp.maximum(jnp.linalg.norm(s), 1e-9)
-            return s, jnp.abs(jnp.fft.fft(s, axis=-1))
-
-        sa, ta = describe_mxu(pa)
-        sb, tb = describe_mxu(pb)
-        dist, shift = ring.correlate(ta, tb[None])
-        assert float(dist[0]) < 0.1
-        yaws, xys, res = ring.se2_hypotheses(sa, sb, shift[0])
-        k = int(np.argmin(np.asarray(res)))
-        dyaw = (float(yaws[k]) - phi + np.pi) % (2 * np.pi) - np.pi
-        assert abs(dyaw) < 0.1
-        assert float(np.linalg.norm(np.asarray(xys[k]) - t)) < 3.0
+    def test_radon_matches_numpy_rotate_and_sum(self):
+        """`radon` against a float64 NumPy loop over angles: bilinear
+        resampling of the image rotated about its centre (zero outside),
+        summed down the columns."""
+        rng = np.random.default_rng(2)
+        size, n_angles = 40, 24
+        img = (rng.random((size, size)) < 0.2).astype(np.float64)
+        c = (size - 1) / 2.0
+        u = np.arange(size) - c
+        X, Y = np.meshgrid(u, u, indexing="xy")
+        expect = np.zeros((n_angles, size))
+        for a, th in enumerate(np.linspace(0, np.pi, n_angles,
+                                           endpoint=False)):
+            xr = np.cos(th) * X - np.sin(th) * Y + c
+            yr = np.sin(th) * X + np.cos(th) * Y + c
+            x0, y0 = np.floor(xr).astype(int), np.floor(yr).astype(int)
+            rot = np.zeros((size, size))
+            for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                xi, yi = x0 + dx, y0 + dy
+                w = ((xr - x0) if dx else (1 - (xr - x0))) * (
+                    (yr - y0) if dy else (1 - (yr - y0)))
+                ok = (xi >= 0) & (xi < size) & (yi >= 0) & (yi < size)
+                rot += np.where(
+                    ok, img[np.clip(yi, 0, size - 1),
+                            np.clip(xi, 0, size - 1)] * w, 0.0)
+            expect[a] = rot.sum(axis=0)
+        got = np.asarray(ring.radon(jnp.asarray(img, jnp.float32), n_angles))
+        np.testing.assert_allclose(got, expect, rtol=0, atol=1e-4)
 
     def test_align_sinogram_matches_rotated_image(self):
         rng = np.random.default_rng(1)

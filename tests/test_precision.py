@@ -1,11 +1,10 @@
 """Precision-policy regression guards.
 
-The package-wide default matmul precision MUST be float32: TPU bf16 MXU
-rounding (~4e-3 per 3x3 entry) compounds through pose chains, GN normal
-equations and CG solves into metre-level trajectory error (measured on
-a v5e chip: identical pipeline, ATE 0.54 m default vs 0.057 m f32 —
-see mr_slam_tpu/precision.py). Descriptor batches opt back into the
-hardware default explicitly via `precision.fast`.
+The package-wide default matmul precision MUST be float32: reduced-
+precision matmul rounding (TF32 on the GPU's tensor cores) compounds
+through pose chains, GN normal equations and CG solves into trajectory
+error (see mr_slam_tpu/precision.py). Descriptor batches opt back into
+the hardware default explicitly via `precision.fast`.
 """
 import jax
 import jax.numpy as jnp
